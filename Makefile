@@ -1,12 +1,7 @@
 # hullwhite_tpu — build & run targets (analogue of the reference makefile)
 
-.PHONY: native test tpu-test q1 q2 q3 benchmark all analyze bench clean cms exotics notes \
-        g2pp swaption cap grid calibrate products results-check
-
-# consistency gate: RESULTS.md flagship claims <-> data/ artifacts <->
-# newest BENCH_r*.json (round-5; fails loudly on the round-4 drift class)
-results-check:
-	python tools/results_check.py
+.PHONY: native test gpu-test smoke q1 q2 q3 benchmark all analyze bench clean cms \
+        exotics notes g2pp swaption cap grid calibrate products
 
 native:
 	$(MAKE) -C native
@@ -14,8 +9,12 @@ native:
 test:
 	python -m pytest tests/ -q
 
-tpu-test:
-	python -m pytest tpu_tests/ -q
+# on a machine with a GPU: the card lane, and the end-to-end smoke test
+gpu-test:
+	python -m pytest gpu_tests/ -q
+
+smoke:
+	python chip_smoke.py
 
 q1:
 	python -m hullwhite_tpu.cli q1

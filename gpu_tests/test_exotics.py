@@ -1,25 +1,18 @@
-"""Exotic layer on the real chip: CMS spread, range accrual and the
-puttable note priced on TPU against their fp64 oracles (the CPU suite
-already pins these; this lane catches TPU-only compile/precision
-regressions — cf. the documented fp32 exp/Phi ulp floor)."""
-
-import sys
-import os
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+"""Exotic layer on the GPU: CMS spread, range accrual, notes and caps
+priced on the card against their fp64 oracles (the CPU suite already
+pins these; this lane catches GPU-only compile/precision regressions —
+cf. the fp32 exp/Phi ulp floor)."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
-
-if jax.devices()[0].platform == "cpu":
-    pytest.skip("requires TPU hardware", allow_module_level=True)
-
-import jax.numpy as jnp
 
 from hullwhite_tpu import instruments, range_note, tiny_config
 from hullwhite_tpu.models import hull_white as hw
 from hullwhite_tpu.models import oracles
+
+pytestmark = pytest.mark.gpu
 
 CFG = tiny_config(n_paths=1 << 15, path_block=1 << 13, n_steps=1000)
 KEY = jax.random.key(21)
@@ -34,7 +27,7 @@ def market():
                           f=jnp.asarray(f, jnp.float32))
 
 
-def test_cms_spread_on_tpu(market):
+def test_cms_spread_on_gpu(market):
     kw = dict(strike=0.002, tenor=2.0, long_tenor=4.0, short_tenor=1.0)
     res = instruments.price_cms_spread(CFG, KEY, market, n_blocks=2, **kw)
     orc, _ = instruments.cms_spread_quadrature(CFG, market, **kw)
@@ -42,7 +35,7 @@ def test_cms_spread_on_tpu(market):
         float(res.price), orc)
 
 
-def test_range_accrual_on_tpu(market):
+def test_range_accrual_on_gpu(market):
     kw = dict(coupon=0.03, lo=0.01, hi=0.022, tenor=3.0, obs_per_period=5)
     res = instruments.price_range_accrual(CFG, KEY, market, n_blocks=2, **kw)
     orc, _ = instruments.range_accrual_closed_form(CFG, market, **kw)
@@ -50,9 +43,9 @@ def test_range_accrual_on_tpu(market):
         float(res.price), orc)
 
 
-def test_range_note_on_tpu(market):
-    """DP (host fp64) + MC policy run on chip; allow the documented
-    ~e-6-scale TPU fp32 exp ulp floor on top of MC noise."""
+def test_range_note_on_gpu(market):
+    """DP (host fp64) + MC policy run on the card; allow an e-6-scale
+    fp32 exp ulp floor on top of MC noise."""
     kw = dict(coupon=0.03, lo=0.01, hi=0.022, tenor=3.0, obs_per_period=5)
     dp = range_note.dp_oracle_range_note(CFG, market, **kw)
     res = range_note.price_range_note(CFG, KEY, market, n_blocks=2,
@@ -61,7 +54,7 @@ def test_range_note_on_tpu(market):
     assert float(res.std_error) < float(res.raw_std_error)
 
 
-def test_snowball_and_floater_on_tpu(market):
+def test_snowball_and_floater_on_gpu(market):
     from hullwhite_tpu import floater, snowball
 
     skw = dict(initial=0.02, spread=0.013, cap=0.06, tenor=3.0)
@@ -77,8 +70,8 @@ def test_snowball_and_floater_on_tpu(market):
         < 5 * float(fres.std_error) + 1e-5
 
 
-def test_g2_note_family_on_tpu(market):
-    """The G2++ exotic twins compile and price on chip vs their fp64
+def test_g2_note_family_on_gpu(market):
+    """The G2++ exotic twins compile and price on the card vs their fp64
     oracles at reduced grid sizes (the CPU suite pins the oracles; the
     measured O(h^2) bilinear convexity bias at (81,31,10) bounds the
     extra tolerance)."""
@@ -119,9 +112,9 @@ def test_g2_note_family_on_tpu(market):
         < 5 * float(fres.std_error) + 2e-4
 
 
-def test_cap_family_on_tpu(market):
+def test_cap_family_on_gpu(market):
     """Chooser/auto, ratchet and knock-out caps (HW + G2++ twins)
-    compile and price on chip against their fp64 oracles."""
+    compile and price on the card against their fp64 oracles."""
     from hullwhite_tpu import barrier, chooser, ratchet
     from hullwhite_tpu.models import g2pp
 
@@ -157,7 +150,7 @@ def test_cap_family_on_tpu(market):
         < 5 * float(kres2.std_error) + 3e-4
 
 
-def test_g2_callable_snowball_on_tpu(market):
+def test_g2_callable_snowball_on_gpu(market):
     from hullwhite_tpu import g2_note
     from hullwhite_tpu.models import g2pp
 

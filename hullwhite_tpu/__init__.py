@@ -1,10 +1,10 @@
-"""hullwhite_tpu — TPU-native Hull-White Monte Carlo pricing & sensitivities.
+"""hullwhite_tpu — Hull-White Monte Carlo pricing & sensitivities in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
+A from-scratch JAX/XLA framework with the capabilities of the CUDA
 reference ``Monte-Carlo-simulation-of-Hull-White-model-and-sensitivities-
 computation``: zero-coupon curve bootstrap, theta calibration recovery,
 control-variate ZBC option pricing, and vega via pathwise tangents, AD, and
-CRN finite differences — redesigned around the MXU (simulation as one
+CRN finite differences — redesigned around matmuls (simulation as one
 matmul), counter-based RNG, and psum-over-mesh scaling.
 """
 

@@ -390,7 +390,7 @@ def plot_cs01_ladder(data_dir: Path, plots_dir: Path):
 def print_summary(data_dir: Path):
     """Consolidated run report (reference analyze.py:249-344)."""
     print("=" * 72)
-    print("HULLWHITE_TPU RUN SUMMARY")
+    print("HULL-WHITE RUN SUMMARY")
     print("=" * 72)
     for name in ["q1_results.json", "q2a_results.json", "q2b_results.json",
                  "q3_results.json", "zbc_statistics_optimal.json",

@@ -1,16 +1,14 @@
 """Engine-tier benchmark harness.
 
-The TPU analogue of the reference's reduction-strategy benchmark
+The analogue of the reference's reduction-strategy benchmark
 (src/benchmark_reductions.cu, C40): where the CUDA project compares three
 reduction implementations of the same pricing kernel (naive atomics /
 shared-memory tree / warp+block shuffle), this framework compares its
 engine tiers of the same estimator:
 
     scan          sequential lax.scan over steps  (the "naive" tier)
-    linear        full shock matmul on the MXU
-    exact         Cholesky functional sampling (XLA)
-    pallas        fused on-chip RNG + matmul kernel, full steps
-    pallas_exact  fused Cholesky kernel
+    linear        full shock matmul
+    exact         Cholesky functional sampling
 
 with the same cross-variant price-consistency gate (the reference requires
 < 1e-6 absolute agreement between its kernels, benchmark_reductions.cu:
@@ -29,36 +27,20 @@ from .config import HWConfig
 from . import pricing
 from .ops.payoffs import cv_estimate
 from .utils import io as hwio
-from .utils.timing import bench, fetch_rtt
+from .utils.timing import bench
 
-# the scan tier is minutes-slow at full scale on TPU (it is the design
-# antipattern the framework exists to avoid); benchmark it at reduced size
+# the scan tier is the step-by-step design antipattern the framework
+# exists to avoid; benchmark it at reduced size
 SCAN_PATHS = 1 << 16
 
 
 def run_benchmark(cfg: HWConfig, key, reps: int = 10, sweep: bool = False):
-    on_tpu = jax.devices()[0].platform != "cpu"
     engines = ["linear", "exact"]
-    bootstrap_engine = "exact"
-    if on_tpu:
-        from .pallas import fused
-
-        # fused kernels need path_block to be a multiple of their tile;
-        # the full-step ZBC kernel only needs TILE_FULL_OPT, the
-        # curve/option exact kernels have their own tiles
-        if cfg.path_block % fused.TILE_FULL_OPT == 0:
-            engines.append("pallas")
-        if cfg.path_block % (fused.TILE_OPT * fused.PAD) == 0:
-            engines.append("pallas_exact")
-        if cfg.path_block % (2 * fused.TILE_EXACT) == 0:
-            bootstrap_engine = "pallas_exact"
-    rtt = fetch_rtt()
-    market = pricing.bootstrap_curve(cfg, key, engine=bootstrap_engine)
+    market = pricing.bootstrap_curve(cfg, key, engine="exact")
 
     print("--- Engine-tier benchmark: ZBC control-variate pricing ---")
-    scan_note = f" (+ scan tier at {SCAN_PATHS} pairs)" if not on_tpu else ""
     print(f"config: {cfg.n_paths} path pairs x {cfg.n_steps_s1} steps to S1"
-          f"{scan_note}\n")
+          f" (+ scan tier at {SCAN_PATHS} pairs)\n")
     print(f"{'engine':14s} {'time (ms)':>10s} {'M paths/s':>10s} "
           f"{'price':>12s} {'beta':>8s}")
 
@@ -67,7 +49,7 @@ def run_benchmark(cfg: HWConfig, key, reps: int = 10, sweep: bool = False):
         prep = pricing._option_prep_fn(cfg, eng, "zbc")(
             cfg.sigma, cfg.sigma, market)
         f = pricing._option_run_fn(cfg, eng, "zbc", None)
-        dt, m = bench(f, key, prep, market, n=reps, rtt=rtt)
+        dt, m = bench(f, key, prep, market, n=reps)
         est = cv_estimate(jnp.asarray(m), market.P[-1])
         rows[eng] = {"ms": dt * 1e3,
                      "paths_per_sec": 2 * cfg.n_paths / dt,
@@ -77,16 +59,14 @@ def run_benchmark(cfg: HWConfig, key, reps: int = 10, sweep: bool = False):
 
     # scan tier, reduced size (normalized throughput still comparable;
     # the tier exists as the semantic reference — the step-by-step
-    # antipattern the framework avoids, ~700x slower than the exact tier
-    # at full scale on v5e: 37 M paths/s, RESULTS.md.  Compiles in ~7 s on
-    # the current remote toolchain.)
+    # antipattern the framework avoids)
     scan_pairs = min(cfg.n_paths, SCAN_PATHS)
     scfg = cfg.replace(n_paths=scan_pairs,
                        path_block=min(cfg.path_block, SCAN_PATHS))
     prep = pricing._option_prep_fn(scfg, "scan", "zbc")(
         scfg.sigma, scfg.sigma, market)
     f = pricing._option_run_fn(scfg, "scan", "zbc", None)
-    dt, m = bench(f, key, prep, market, n=3, rtt=rtt)
+    dt, m = bench(f, key, prep, market, n=3)
     est = cv_estimate(jnp.asarray(m), market.P[-1])
     rows["scan"] = {"ms": dt * 1e3,
                     "paths_per_sec": 2 * scfg.n_paths / dt,
@@ -127,8 +107,7 @@ def run_benchmark(cfg: HWConfig, key, reps: int = 10, sweep: bool = False):
               "price_spread": spread}
 
     if sweep:
-        result["block_sweep"] = _block_sweep(cfg, key, market, rtt,
-                                             best if on_tpu else "exact")
+        result["block_sweep"] = _block_sweep(cfg, key, market, "exact")
 
     hwio.write_json(hwio.DATA_DIR / "benchmark_engines.json",
                     "Engine benchmark", cfg, results=result)
@@ -142,8 +121,8 @@ def ab_compare(cfg_a, cfg_b, key, market, engine_a, engine_b,
 
     The statistical-validation analogue of the reference's method-agreement
     z-test (3_sensitivity_analysis.cu:656-695), applied to engineering
-    choices instead of estimators: RNG designs (MXU-mixed vs exact
-    Gaussian) or MXU precisions (bf16 'default' vs fp32 'highest').  Both
+    choices instead of estimators: engines or matmul precisions
+    ('default' vs fp32 'highest').  Both
     arms run n_runs independent seeds in one device call each
     (pricing.validate_zbc_runs / validate_vega_runs); the z-score uses the
     measured per-arm standard errors.
@@ -185,212 +164,6 @@ def ab_compare(cfg_a, cfg_b, key, market, engine_a, engine_b,
     return out
 
 
-def run_roofline(cfg: HWConfig, key, reps: int = 10):
-    """Speed-of-light accounting for the full-step tiers: analytic MXU
-    flop counts from the live tile constants (fused.fullstep_roofline)
-    divided into the measured wall time -> achieved fraction of the bf16
-    MXU peak, per tier.  The exact tiers' equivalent accounting (VPU
-    Box-Muller wall, 86% achieved) lives in RESULTS.md; this makes the
-    full-step tiers' wall equally explicit and repeatable
-    (``cli benchmark --roofline`` -> data/fullstep_roofline.json)."""
-    if jax.devices()[0].platform == "cpu":
-        raise SystemExit("--roofline times the fused Pallas kernels; "
-                         "run it on the TPU")
-    from .pallas import fused
-    from .utils.profile import _DEFAULT_PEAKS, _PEAKS
-
-    dev = str(jax.devices()[0])
-    peaks = next((p for n, p in _PEAKS.items() if n in dev),
-                 _DEFAULT_PEAKS)
-    peak_fs = peaks["bf16_tflops"] * 1e12
-    sheet = fused.fullstep_roofline(cfg)
-    rtt = fetch_rtt()
-    market = pricing.bootstrap_curve(cfg, key, engine="exact")
-    print(f"--- Full-step roofline [{dev}; bf16 peak "
-          f"{peaks['bf16_tflops']:.0f} Tflop/s; matmul passes "
-          f"{sheet['q1_fullstep']['matmul_passes']}] ---")
-    print(f"{'tier':14s} {'ms':>8s} {'M pairs/s':>10s} "
-          f"{'Mflop/pair':>11s} {'Tflop/s':>8s} {'% peak':>7s} "
-          f"{'G normals/s':>12s}")
-    out = {"device": dev, "peak_bf16_tflops": peaks["bf16_tflops"],
-           "matmul_precision": cfg.matmul_precision, "tiers": {}}
-
-    def row(name, dt):
-        e = sheet[name]
-        pairs_s = cfg.n_paths / dt
-        fs = pairs_s * e["mxu_flops_per_pair"]
-        frac = fs / peak_fs
-        norm_s = pairs_s * e["normals_per_pair"]
-        print(f"{name:14s} {dt*1e3:8.3f} {pairs_s/1e6:10.0f} "
-              f"{e['mxu_flops_per_pair']/1e6:11.3f} {fs/1e12:8.1f} "
-              f"{100*frac:6.1f}% {norm_s/1e9:12.1f}")
-        out["tiers"][name] = {
-            "ms": dt * 1e3, "pairs_per_sec": pairs_s,
-            "mxu_flops_per_pair": e["mxu_flops_per_pair"],
-            "achieved_tflops": fs / 1e12, "fraction_of_peak": frac,
-            "normals_per_sec": norm_s}
-
-    prep = pricing._curve_prep_fn(cfg, "pallas")(cfg.sigma, cfg.sigma)
-    dt, _ = bench(pricing._curve_sums_run_fn(cfg, "pallas", None),
-                  key, prep, n=reps, rtt=rtt)
-    row("q1_fullstep", dt)
-    for kind in ("zbc", "vega"):
-        prep = pricing._option_prep_fn(cfg, "pallas", kind)(
-            cfg.sigma, cfg.sigma, market)
-        f = pricing._option_run_fn(cfg, "pallas", kind, None)
-        dt, _ = bench(f, key, prep, market, n=reps, rtt=rtt)
-        row(f"{kind}_fullstep", dt)
-    # the raw-generator wall: with the Hadamard premix the tiers are no
-    # longer MXU-bound; measure the draw+bitcast peak on the same
-    # geometry and report each tier against THAT wall
-    raw_fn, raws_per_lane = fused.raw_peak_fn(cfg)
-    dt_raw, _ = bench(jax.jit(lambda key, _p, _m: raw_fn(key)),
-                      key, None, None, n=reps, rtt=rtt)
-    raw_peak = cfg.n_paths * raws_per_lane / dt_raw
-    out["raw_generator_peak_per_sec"] = raw_peak
-    print(f"\nraw-generator peak (draw + octave bitcast, minimal "
-          f"consumer): {raw_peak/1e9:.0f} G raws/s")
-
-    # unit-ceiling microbenches (round 4): the PRNG draw wall and the
-    # vector-ALU wall for the octave-spread op class, measured on the
-    # same tile/grid geometry — each tier then reports its achieved
-    # fraction of EVERY unit and the serial-model occupancy sum, proving
-    # where the speed of light sits (VERDICT r3 #6)
-    draw_fn, words_per_lane = fused.draw_peak_fn(cfg)
-    dt_d, _ = bench(jax.jit(lambda key, _p, _m: draw_fn(key)),
-                    key, None, None, n=reps, rtt=rtt)
-    prng_peak = cfg.n_paths * words_per_lane / dt_d
-    alu_fn, alu_ops_per_lane = fused.bitops_peak_fn(cfg)
-    dt_a, _ = bench(jax.jit(lambda key, _p, _m: alu_fn(key)),
-                    key, None, None, n=reps, rtt=rtt)
-    alu_peak = cfg.n_paths * alu_ops_per_lane / dt_a
-    out["prng_peak_words_per_sec"] = prng_peak
-    out["vpu_alu_peak_ops_per_sec"] = alu_peak
-    print(f"PRNG draw peak (xor-only consumer): {prng_peak/1e9:.0f} G "
-          f"u32 words/s; VPU ALU peak (register-resident octave op mix): "
-          f"{alu_peak/1e12:.2f} T ops/s")
-
-    vpu = fused.vpu_ops_accounting(cfg)
-    print(f"\n{'tier':14s} {'% MXU':>7s} {'% PRNG':>7s} {'% VPU-ALU':>10s} "
-          f"{'serial sum':>11s}  limiting unit")
-    for name, t in out["tiers"].items():
-        acct = vpu[name]
-        pairs_s = t["pairs_per_sec"]
-        t["fraction_of_raw_wall"] = t["normals_per_sec"] / raw_peak
-        t["vpu_ops_per_pair"] = acct["vpu_ops_per_pair"]
-        t["vpu_breakdown"] = acct["breakdown"]
-        fr_mxu = t["fraction_of_peak"]
-        fr_prng = pairs_s * acct["raw_words_per_pair"] / prng_peak
-        fr_alu = pairs_s * acct["vpu_ops_per_pair"] / alu_peak
-        t["fraction_of_prng_peak"] = fr_prng
-        t["fraction_of_vpu_alu_peak"] = fr_alu
-        t["serial_occupancy_sum"] = fr_mxu + fr_prng + fr_alu
-        units = {"MXU": fr_mxu, "PRNG": fr_prng, "VPU-ALU": fr_alu}
-        t["limiting_unit"] = max(units, key=units.get)
-        print(f"{name:14s} {100*fr_mxu:6.1f}% {100*fr_prng:6.1f}% "
-              f"{100*fr_alu:9.1f}% {100*t['serial_occupancy_sum']:10.0f}%  "
-              f"{t['limiting_unit']}")
-    print("serial sum = time shares if the units never overlapped; "
-          "~100% or a single unit near 100% both mean the tier is at "
-          "its combined speed of light for this op mix")
-    hwio.write_json(hwio.DATA_DIR / "fullstep_roofline.json",
-                    "Full-step roofline", cfg, results=out)
-    print("saved data/fullstep_roofline.json")
-
-    # --- exact (flagship) tiers: unit walls + occupancy (round-5,
-    # VERDICT r4 #7).  The exact tiers have no premix matmul; their
-    # units are the Box-Muller pipeline, the payoff exp and exact-
-    # reciprocal pipelines, and (q1) the Cholesky weight matmul.  Each
-    # ceiling is microbenched at the tier's own tile geometry; the
-    # analytic per-path usage (fused.exact_tier_accounting) then gives
-    # fraction-of-unit and the serial-model occupancy sum. ---
-    bm_fn, bm_total = fused.bm_peak_fn(cfg)
-    dt_bm, _ = bench(jax.jit(lambda key, _p, _m: bm_fn(key)),
-                     key, None, None, n=reps, rtt=rtt)
-    bm_peak = bm_total / dt_bm
-    exp_fn, exp_total = fused.exp_peak_fn(cfg)
-    dt_e, _ = bench(jax.jit(lambda key, _p, _m: exp_fn(key)),
-                    key, None, None, n=reps, rtt=rtt)
-    exp_peak = exp_total / dt_e
-    rc_fn, rc_total = fused.recip_peak_fn(cfg)
-    dt_rc, _ = bench(jax.jit(lambda key, _p, _m: rc_fn(key)),
-                     key, None, None, n=reps, rtt=rtt)
-    recip_peak = rc_total / dt_rc
-    print(f"\n--- Exact-tier roofline [BM peak {bm_peak/1e9:.0f} G "
-          f"normals/s; exp peak {exp_peak/1e9:.0f} G/s; exact-recip "
-          f"peak {recip_peak/1e9:.0f} G/s] ---")
-    ex_out = {"device": dev, "peak_bf16_tflops": peaks["bf16_tflops"],
-              "matmul_precision": cfg.matmul_precision,
-              "bm_peak_normals_per_sec": bm_peak,
-              "exp_peak_per_sec": exp_peak,
-              "recip_peak_per_sec": recip_peak,
-              "vpu_alu_peak_ops_per_sec": alu_peak, "tiers": {}}
-    acct = fused.exact_tier_accounting(cfg)
-
-    def ex_row(name, dt, paths):
-        a = acct[name]
-        paths_s = paths / dt
-        fr_bm = paths_s * a["normals_per_path"] / bm_peak
-        fr_exp = paths_s * a["exps_per_path"] / exp_peak
-        fr_rc = (paths_s * a["recips_per_path"] / recip_peak
-                 if a["recips_per_path"] else 0.0)
-        fr_mxu = paths_s * a["mxu_flops_per_path"] / peak_fs
-        fr_alu = paths_s * a["alu_tail_per_path"] / alu_peak
-        ssum = fr_bm + fr_exp + fr_rc + fr_mxu + fr_alu
-        units = {"BoxMuller": fr_bm, "exp": fr_exp, "recip": fr_rc,
-                 "MXU": fr_mxu, "VPU-ALU": fr_alu}
-        lim = max(units, key=units.get)
-        print(f"{name:12s} {dt*1e3:8.3f} ms {paths_s/1e9:7.2f} B paths/s"
-              f"  BM {100*fr_bm:5.1f}%  exp {100*fr_exp:5.1f}%  recip "
-              f"{100*fr_rc:5.1f}%  MXU {100*fr_mxu:5.1f}%  ALU "
-              f"{100*fr_alu:4.1f}%  serial {100*ssum:4.0f}%  {lim}")
-        ex_out["tiers"][name] = {
-            "ms": dt * 1e3, "paths_per_sec": paths_s, **a,
-            "fraction_of_bm_peak": fr_bm, "fraction_of_exp_peak": fr_exp,
-            "fraction_of_recip_peak": fr_rc, "fraction_of_mxu_peak": fr_mxu,
-            "fraction_of_vpu_alu_peak": fr_alu,
-            "serial_occupancy_sum": ssum, "limiting_unit": lim}
-
-    prep = pricing._curve_prep_fn(cfg, "pallas_exact")(cfg.sigma, cfg.sigma)
-    dt, _ = bench(pricing._curve_sums_run_fn(cfg, "pallas_exact", None),
-                  key, prep, n=reps, rtt=rtt)
-    ex_row("q1_exact", dt, 2 * cfg.n_paths)
-    if cfg.matmul_precision == "highest":
-        # the bench headline samples through ONE bf16 MXU pass
-        # ("default", measured bias in RESULTS.md) — report that row's
-        # occupancy too, where the transcendental walls dominate
-        cfg_d = cfg.replace(matmul_precision="default")
-        prep = pricing._curve_prep_fn(cfg_d, "pallas_exact")(
-            cfg.sigma, cfg.sigma)
-        dt, _ = bench(pricing._curve_sums_run_fn(cfg_d, "pallas_exact",
-                                                 None),
-                      key, prep, n=reps, rtt=rtt)
-        acct["q1_exact_bf16"] = dict(acct["q1_exact"],
-                                     mxu_flops_per_path=float(
-                                         fused.PAD * fused.PAD))
-        ex_row("q1_exact_bf16", dt, 2 * cfg_d.n_paths)
-    # option exact tiers at the bench scale (2^24): at 2^20 the 32-tile
-    # grid under-fills the chip and the row reads as launch-bound
-    # headroom that is not really there (measured: 17.8 vs 69.6 B
-    # paths/s) — the headline numbers are quoted at 2^24, so the
-    # occupancy is too
-    big = cfg.replace(n_paths=max(cfg.n_paths, 1 << 24),
-                      path_block=1 << 19)
-    for kind, name, paths in (("zbc", "zbc_exact", 2 * big.n_paths),
-                              ("vega", "vega_exact", big.n_paths)):
-        prep = pricing._option_prep_fn(big, "pallas_exact", kind)(
-            big.sigma, big.sigma, market)
-        f = pricing._option_run_fn(big, "pallas_exact", kind, None)
-        dt, _ = bench(f, key, prep, market, n=reps, rtt=rtt)
-        ex_row(name, dt, paths)
-    print("serial sum >= ~100% means the tier is at its combined "
-          "speed of light; a single unit near 100% names the wall")
-    hwio.write_json(hwio.DATA_DIR / "exact_roofline.json",
-                    "Exact-tier roofline", cfg, results=ex_out)
-    print("saved data/exact_roofline.json")
-    return 0
-
-
 def _curve_ab(cfg_a, cfg_b, key, engine_a, engine_b, n_runs):
     """Paired P(0,10) A/B across n_runs bootstrap seeds (the curve is the
     one deliverable the option-kernel A/B doesn't cover)."""
@@ -416,43 +189,23 @@ def _curve_ab(cfg_a, cfg_b, key, engine_a, engine_b, n_runs):
 
 # (mode) -> (zbc/vega engines A/B, curve engines A/B, precision A/B)
 AB_MODES = {
-    # exact-Gaussian XLA tiers vs the fused kernels' hardware PRNG +
-    # polynomial Box-Muller (same distribution, different generator)
-    "rng": dict(opt=("exact", "pallas_exact"), curve=None, prec=None,
-                label="XLA threefry+erfinv vs hw PRNG+poly Box-Muller"),
-    # MXU input precision: fp32 ("highest") vs bf16 ("default") arms on
-    # identical seeds — paired diffs resolve deterministic shifts exactly
+    # matmul input precision: fp32 ("highest") vs the platform default
+    # ("default": TF32 on a GPU) on identical seeds — paired diffs
+    # resolve deterministic shifts exactly
     "precision": dict(opt=("exact", "exact"), curve=("linear", "linear"),
                       prec=("highest", "default"),
                       label="matmul precision highest vs default"),
-    # full-step tiers: exact-Gaussian linear tier vs the MXU-mixed
-    # generator (128-wide Hadamard CLT mix, pallas/fused.py)
-    "fullstep": dict(opt=("linear", "pallas"), curve=("linear", "pallas"),
-                     prec=None,
-                     label="exact-Gaussian fullstep vs MXU-mixed RNG"),
 }
 
 
 def run_ab(cfg: HWConfig, key, mode: str, n_runs: int = 20):
-    """Repeatable entry point for the RESULTS.md A/B tables
-    (``cli benchmark --ab rng|precision|fullstep`` ->
+    """Repeatable paired A/B (``cli benchmark --ab precision`` ->
     data/ab_results_{mode}.json).
 
     The statistical-validation analogue of the reference's method-
     agreement z-test (3_sensitivity_analysis.cu:656-695) applied to
     engineering choices; see ab_compare for the paired-seed design."""
     spec = AB_MODES[mode]
-    if "pallas" in spec["opt"][1] and cfg.path_block % (1 << 15):
-        raise SystemExit(
-            f"--ab {mode} uses a fused Pallas tier: path_block must be a "
-            f"multiple of 32768 (pass --paths >= 32768), got "
-            f"{cfg.path_block}")
-    on_tpu = jax.devices()[0].platform != "cpu"
-    if not on_tpu and "pallas" in spec["opt"][1]:
-        raise SystemExit(
-            f"--ab {mode} compares against a fused Pallas kernel whose "
-            "in-kernel PRNG only runs on TPU hardware (interpret mode "
-            "returns zero random bits; see CLAUDE.md)")
     cfg_a = cfg_b = cfg
     if spec["prec"]:
         cfg_a = cfg.replace(matmul_precision=spec["prec"][0])
@@ -467,15 +220,14 @@ def run_ab(cfg: HWConfig, key, mode: str, n_runs: int = 20):
     agree = all(abs(out[k]["z"]) < 3.0 for k in ("price", "vega"))
     print(f"A/B verdict ({mode}): "
           f"{'AGREE at the 3-sigma level' if agree else 'DISAGREE'}")
-    # one file per mode: running rng/precision/fullstep back to back must
-    # leave all three artifacts, not just the last
+    # one file per mode
     hwio.write_json(hwio.DATA_DIR / f"ab_results_{mode}.json",
                     f"A/B {mode}", cfg, results=out)
     print(f"saved data/ab_results_{mode}.json")
     return 0
 
 
-def _block_sweep(cfg, key, market, rtt, engine):
+def _block_sweep(cfg, key, market, engine):
     """path_block autotune sweep (analogue of reference C39 block sizes)."""
     print(f"\n--- path_block sweep [{engine}] ---")
     out = {}
@@ -488,9 +240,8 @@ def _block_sweep(cfg, key, market, rtt, engine):
             prep = pricing._option_prep_fn(c, engine, "vega")(
                 c.sigma, c.sigma, market)
             f = pricing._option_run_fn(c, engine, "vega", None)
-            dt, _ = bench(f, key, prep, market, n=10, rtt=rtt)
+            dt, _ = bench(f, key, prep, market, n=10)
         except ValueError as e:
-            # fused kernels need path_block >= their path tile
             print(f"path_block=2^{pb_log2}: skipped ({e})")
             continue
         out[pb] = dt * 1e3

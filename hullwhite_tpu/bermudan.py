@@ -61,11 +61,11 @@ from .models import hull_white as hw
 from .models.hull_white import MarketCurve
 from .instruments import CouponSchedule, _bond_value_terms
 from .ops.engine_linear import _shock_shapes, det_trajectory
-# accurate software exp/pdf (round-5): the TPU hardware fp32 exp carries
-# a measured -8.4e-7 mean relative bias (40 ulp max) that composed into
-# the bracket's -2e-6 on-chip floor; exp32 is ~1 ulp unbiased on both
-# backends, so TPU fp32 == CPU fp32 == fp64 oracle to ~1e-7 and the
-# bracket needs no device allowance (ops/accurate.py, VERDICT r4 #3)
+# accurate software exp/pdf: a hardware fp32 exp can carry a mean
+# relative bias (one accelerator measured -8.4e-7, 40 ulp max) that
+# composes into a -2e-6 bracket floor; exp32 is ~1 ulp unbiased on every
+# backend, so device fp32 == CPU fp32 == fp64 oracle to ~1e-7 and the
+# bracket needs no device allowance (ops/accurate.py)
 from .ops.accurate import exp32 as _exp, npdf as _npdf
 from .parallel import mesh as pmesh
 

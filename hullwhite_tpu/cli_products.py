@@ -8,11 +8,12 @@ import jax.numpy as jnp
 
 from .config import HWConfig
 from . import greeks, pricing
-from .cli import _cfg, _default_engine, _key
+from .backend import default_engine, mesh_devices
+from .cli import _cfg, _key
 from .models import hull_white as hw
 from .utils import io as hwio
 from .utils import stats as hwstats
-from .utils.timing import bench, fetch_rtt
+from .utils.timing import bench
 
 
 def cmd_swaption(args):
@@ -1135,26 +1136,16 @@ def cmd_sweep(args):
     """Pod-scale sweep (BASELINE configs[4]): 2^24 antithetic pairs
     sharded over a device mesh — curve bootstrap, ZBC CV pricing,
     pathwise vega, and the shared-path strike x maturity grid, one
-    command.  On the 8-chip pod this is the production entry; with one
-    real chip it runs a 1-device mesh; off-TPU it self-provisions an
-    N-device virtual CPU mesh (the CI configuration), so the sharded
-    code path is exercised everywhere."""
+    command.  On a multi-card host this is the production entry; with
+    one card it runs a 1-device mesh; on the CPU platform it provisions
+    an N-device virtual mesh (the CI configuration), so the sharded code
+    path is exercised everywhere.  An accelerator with fewer than N
+    devices is an error, never a silent CPU run."""
     from . import grid as grid_mod
     from .parallel import mesh as pmesh
-    from .utils.timing import bench, fetch_rtt
 
     n_dev = args.mesh or len(jax.devices())
-    if len(jax.devices()) < n_dev:
-        # self-provision a virtual CPU mesh (same dance as
-        # __graft_entry__.dryrun_multichip; the TPU backend is already
-        # initialized, so env vars are too late)
-        from jax._src import xla_bridge as _xb
-
-        _xb._clear_backends()
-        _xb.get_backend.cache_clear()
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", n_dev)
-    devices = jax.devices()[:n_dev]
+    devices = mesh_devices(n_dev)
     mesh = pmesh.path_mesh(devices)
     n_paths = args.paths or (1 << 24)
     cfg = HWConfig(n_paths=n_paths,
@@ -1164,15 +1155,14 @@ def cmd_sweep(args):
         raise SystemExit(f"--paths must give a block count divisible by "
                          f"the {n_dev}-device mesh")
     key = _key(cfg, args)
-    eng = args.engine or _default_engine(cfg)
+    eng = args.engine or default_engine()
     print(f"--- sweep: {cfg.n_paths} pairs over {n_dev} device(s) "
           f"[{devices[0].platform}; engine {eng}] ---")
-    rtt = fetch_rtt()
     t = {}
 
     prep_c = pricing._curve_prep_fn(cfg, eng)(cfg.sigma, cfg.sigma)
     fc = pricing._curve_sums_run_fn(cfg, eng, mesh)
-    dt, sums = bench(fc, key, prep_c, n=args.reps, rtt=rtt)
+    dt, sums = bench(fc, key, prep_c, n=args.reps)
     t["curve_ms"] = dt * 1e3
     P = np.asarray(sums / (2.0 * cfg.n_paths))
     market = pricing.bootstrap_curve(cfg, key, engine=eng, mesh=mesh)
@@ -1182,7 +1172,7 @@ def cmd_sweep(args):
     prep_o = pricing._option_prep_fn(cfg, eng, "zbc")(
         cfg.sigma, cfg.sigma, market)
     fo = pricing._option_run_fn(cfg, eng, "zbc", mesh)
-    dt, m = bench(fo, key, prep_o, market, n=args.reps, rtt=rtt)
+    dt, m = bench(fo, key, prep_o, market, n=args.reps)
     t["zbc_ms"] = dt * 1e3
     from .ops.payoffs import cv_estimate
 
@@ -1193,7 +1183,7 @@ def cmd_sweep(args):
     prep_v = pricing._option_prep_fn(cfg, eng, "vega")(
         cfg.sigma, cfg.sigma, market)
     fv = pricing._option_run_fn(cfg, eng, "vega", mesh)
-    dt, v = bench(fv, key, prep_v, market, n=args.reps, rtt=rtt)
+    dt, v = bench(fv, key, prep_v, market, n=args.reps)
     t["vega_ms"] = dt * 1e3
     print(f"[vega]  {float(v[0]/v[1]):.6f}   {dt*1e3:.1f} ms "
           f"({cfg.n_paths/dt/1e6:.0f} M paths/s)")

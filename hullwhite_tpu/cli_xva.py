@@ -8,11 +8,10 @@ import jax.numpy as jnp
 
 from .config import HWConfig
 from . import greeks, pricing
-from .cli import _cfg, _default_engine, _key
+from .cli import _cfg, _key
 from .models import hull_white as hw
 from .utils import io as hwio
 from .utils import stats as hwstats
-from .utils.timing import bench, fetch_rtt
 
 
 def cmd_xva(args):

@@ -1,6 +1,6 @@
 """Simulation configuration.
 
-TPU-native replacement for the reference's compile-time configuration
+JAX replacement for the reference's compile-time configuration
 (`include/common.cuh:15-57` — ``N_PATHS``/``N_STEPS``/``NTPB``/``N_MAT`` macros,
 host model constants and the ``__constant__``-memory bank).  Instead of
 preprocessor macros + CUDA constant memory we use a frozen, hashable
@@ -8,9 +8,9 @@ dataclass that is passed as a *static* argument to jitted functions, so XLA
 specializes every kernel on the configuration exactly like ``nvcc`` did on
 the ``#define``s.
 
-There is no thread-block geometry here: on TPU the path axis is tiled by
-``path_block`` (the per-device block streamed through VMEM) and sharded over
-the device mesh (see ``hullwhite_tpu.parallel``).
+There is no thread-block geometry here: the path axis is tiled by
+``path_block`` (the per-device block of paths one loop iteration draws and
+reduces) and sharded over the device mesh (see ``hullwhite_tpu.parallel``).
 """
 
 from __future__ import annotations
@@ -103,18 +103,15 @@ class HWConfig:
     s2: float = 10.0
     strike: float = math.exp(-0.1)
 
-    # Execution parameters (TPU-specific; no CUDA analogue)
+    # Execution parameters (no CUDA analogue)
     path_block: int = 1 << 15  # antithetic pairs per streamed block
     dtype: str = "float32"     # path-state dtype ("float32" | "bfloat16" G)
-    # MXU precision for the shock matmuls: "highest" = true fp32 (6 bf16
-    # passes), "high" = bf16x3, "default" = single bf16 pass.  The default
-    # matmul precision of this jaxlib is bf16-level, which is NOT enough for
-    # 6-significant-digit curve reproduction — keep "highest" unless the
-    # statistical gates are re-verified.
+    # Precision of the shock matmuls: "highest" = true fp32.  A GPU runs
+    # an fp32 matmul that names no precision in TF32 (about three decimal
+    # digits), which is NOT enough for 6-significant-digit curve
+    # reproduction — keep "highest" unless the statistical gates are
+    # re-verified on the card.
     matmul_precision: str = "highest"
-    # Run Pallas kernels in interpreter mode (CPU testing of the fused
-    # engines; slow, functional only).
-    pallas_interpret: bool = False
     seed: int = 0
 
     def __post_init__(self):

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from .backend import check_engine
 from .config import HWConfig
 from .models import hull_white as hw
 from .models.hull_white import MarketCurve
@@ -68,15 +69,10 @@ def _grid_fn(cfg: HWConfig, engine: str, mesh, Ks_t: tuple, S2_t: tuple):
     dtype = jnp.dtype(cfg.dtype)
     n_k, n_s2 = len(Ks_t), len(S2_t)
 
+    check_engine(engine)
+
     def compute(key, sigma, market):
         tables = hw.step_tables(cfg, sigma, cfg.sigma, dtype)
-        if engine.startswith("pallas"):
-            from .pallas import fused
-
-            local = fused.grid_local_fn(cfg, tables, market, sigma,
-                                        Ks_t, S2_t)
-            runner = pmesh.shard_blocks(local, mesh)
-            return runner(key, cfg.n_blocks)
         Ks = jnp.asarray(Ks_t, jnp.float32)
         S2s = jnp.asarray(S2_t, jnp.float32)
         n_cols, state_of = pricing._xla_state_setup(cfg, engine, tables,
@@ -144,11 +140,6 @@ def price_zbc_grid(cfg: HWConfig, key, market: MarketCurve, strikes,
 @lru_cache(maxsize=None)
 def _grid_vega_fn(cfg: HWConfig, engine: str, mesh, Ks_t: tuple,
                   S2_t: tuple):
-    if engine.startswith("pallas"):
-        # forward-mode AD cannot flow through the fused kernel's in-chip
-        # PRNG; the vega surface runs on the XLA exact tier (same
-        # estimator law) regardless of the price-surface engine.
-        engine = "exact"
     moments_fn = _grid_fn(cfg, engine, mesh, Ks_t, S2_t)
 
     def compute(key, sigma, market):

@@ -65,9 +65,9 @@ def _bond_value_terms(cfg: HWConfig, sigma, market: MarketCurve,
     Ts = jnp.asarray(sched.times, jnp.float32)
     cs = jnp.asarray(sched.coupons, jnp.float32)
     alive = (Ts > t + 1e-9).astype(jnp.float32)
-    # accurate software exp (round-5): these coefficients are prep-only
-    # but feed both the MC estimators and the fp64 DP oracles; on the
-    # native TPU exp they carried its -8.4e-7 mean bias, measured as a
+    # accurate software exp: these coefficients are prep-only but feed
+    # both the MC estimators and the fp64 DP oracles; a biased hardware
+    # exp (-8.4e-7 mean, measured on one accelerator) showed up as a
     # common -8.5e-7 platform shift of the Bermudan bracket + oracle
     A = hw.a_hw(cfg, sigma, market, t, Ts, exp=exp32)
     B = hw.b_func(t, Ts, cfg.a, exp=exp32)

@@ -31,9 +31,9 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..config import HWConfig
-# accurate software exp/pdf for the Bermudan bracket path (round-5): the
-# TPU hardware fp32 exp's measured -8.4e-7 mean relative bias composed
-# into the bracket's -2e-6 on-chip floor; see ops/accurate.py
+# accurate software exp/pdf for the Bermudan bracket path: a biased
+# hardware fp32 exp (-8.4e-7 mean relative, measured on one accelerator)
+# composes into a -2e-6 bracket floor; see ops/accurate.py
 from ..ops.accurate import exp32 as _exp, npdf as _npdf
 from . import hull_white as hw
 from .hull_white import MarketCurve
@@ -1274,7 +1274,7 @@ SPLINE_DELTAS = (-2.0, -1.2, -0.6, 0.0, 0.6, 1.2, 2.0)
 # basis (N_PROXY 37 -> 57), all paired-key 2^17-path measurements vs
 # the (481, 96) cubic fp64 DP oracle on the annual bracket:
 #   k=3 upper gap  +9.8e-6 -> +3.4e-6 (width 7.3e-6 -> 3.9e-6; the
-#     remaining ~2-3e-6 is the documented CPU/TPU fp32 eval floor —
+#     remaining ~2-3e-6 is the documented fp32 eval floor —
 #     the paired lower bound sits at the same offset),
 #   k=5 annual width 8.7e-7 -> 4.1e-7,  k=2 unchanged at the floor,
 #   k=5 SEMIANNUAL (the hard round-3b A/B case) width 6.1e-5 -> 2.9e-5.

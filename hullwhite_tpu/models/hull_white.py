@@ -1,6 +1,6 @@
 """Hull-White one-factor model: closed forms and per-step precompute tables.
 
-TPU-native replacement for the reference's device math layer
+JAX replacement for the reference's device math layer
 (``include/common.cuh:60-110`` host precompute + ``:180-258`` device
 functions).  Everything here is a pure, differentiable ``jax.numpy``
 function; the drift tables are *functions of sigma* so that
@@ -75,8 +75,9 @@ def b_func(t, T, a, exp=jnp.exp):
     """B(t,T) = (1 - e^{-a(T-t)})/a (reference common.cuh:180-182).
 
     ``exp`` lets precompute-only callers route through the accurate
-    software exp (ops/accurate.exp32): the TPU hardware fp32 exp carries
-    a -8.4e-7 mean relative bias that otherwise propagates into every
+    software exp (ops/accurate.exp32): a hardware fp32 exp can carry a
+    mean relative bias (-8.4e-7 measured on one accelerator) that would
+    otherwise propagate into every
     bond-term coefficient (measured as a common -8.5e-7 platform shift
     of the Bermudan bracket AND its oracle).  Per-path hot kernels keep
     the native exp."""
@@ -84,7 +85,7 @@ def b_func(t, T, a, exp=jnp.exp):
 
 
 class StepTables(NamedTuple):
-    """Per-step precompute: the TPU analogue of the reference's
+    """Per-step precompute: the analogue of the reference's
     ``__constant__``-memory bank (common.cuh:47-57).
 
     All fields are traced jnp values so the whole pytree is differentiable

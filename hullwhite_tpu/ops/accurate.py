@@ -1,29 +1,30 @@
 """Accurate fp32 transcendentals for on-device estimator evaluation.
 
-Why this exists (round-5, VERDICT r4 #3): the TPU's native fp32 ``exp``
-was measured at up to 40 ulp error with a SYSTEMATIC −8.4e-7 mean
-relative bias over the Bermudan argument range (CPU fp32: 0.65 ulp,
-−1.5e-9 — effectively unbiased).  The Bermudan bracket estimators
+Why this exists: an accelerator's native fp32 ``exp`` was measured at up
+to 40 ulp error with a SYSTEMATIC −8.4e-7 mean relative bias over the
+Bermudan argument range (CPU fp32: 0.65 ulp, −1.5e-9 — effectively
+unbiased).  The Bermudan bracket estimators
 compose several exponentials per term (bond values e^{-B r}, discounts
 e^{-I}, tilting weights e^{-m+v/2}), so the hardware bias accumulated
 into the documented −2e-6 absolute floor on both bracket sides — the
 CPU fp32 twin of the same estimator matches the fp64 oracle to 1.5e-7.
 
 ``exp32`` is a classical Cody–Waite + polynomial exp evaluated in plain
-fp32 VPU arithmetic (mul/add/round/bitcast only — nothing XLA lowers to
-the hardware transcendental):
+fp32 arithmetic (mul/add/round/bitcast only — nothing XLA lowers to the
+hardware transcendental):
 
 * range reduction r = x − k·ln2 with the two-term constant
   (C1 exact in fp32, C2 the fp64 remainder), k = round(x·log2 e);
 * degree-7 Taylor/Horner on |r| ≤ ln2/2 (truncation 5.2e-9 relative);
 * scale by 2^k via exponent-field bitcast.
 
-Measured on the chip (tpu_tests/test_accurate.py): max relative error
-~2 ulp, mean bias ~1e-9 — hardware-independent, so TPU fp32 == CPU fp32
-to ~1e-7 and the bracket quote needs no device allowance.
+Max relative error ~2 ulp, mean bias ~1e-9 — hardware-independent, so
+device fp32 == CPU fp32 to ~1e-7 and the bracket quote needs no device
+allowance (gpu_tests/test_accurate.py pins it on the card; chip_smoke.py
+prints the card's native exp error beside it).
 
 ``nphi``/``npdf`` are the Gaussian CDF/PDF companions: the native CDF
-was measured fine on-chip (2.3e-7 max abs, −5e-10 bias — it is a
+was measured fine on an accelerator (2.3e-7 max abs, −5e-10 bias — it is a
 polynomial erf, not the hardware exp), so ``nphi`` simply forwards to
 it; the PDF inherits the exp bias, so ``npdf`` routes through
 ``exp32``.
@@ -74,7 +75,7 @@ def jax_bitcast_pow2(ki):
 
 
 def nphi(x):
-    """Standard normal CDF (native: measured accurate on-chip)."""
+    """Standard normal CDF (native: measured accurate on device)."""
     return _jnorm.cdf(x)
 
 

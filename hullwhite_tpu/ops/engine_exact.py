@@ -1,6 +1,6 @@
 """Exact functional-sampling engine — distributionally exact, minimal RNG.
 
-The TPU-first observation that unlocks speed-of-light pricing: all
+The observation that unlocks speed-of-light pricing: all
 quantities the reference ever extracts from a simulated path are *linear
 functionals of the Brownian increments* (see engine_linear), hence jointly
 Gaussian with covariance computable in closed form from the shock-weight
@@ -18,9 +18,9 @@ sample the functionals DIRECTLY through the Cholesky factor:
 This produces estimators with *identical distribution* to the step-by-step
 simulation — not a variance reduction, not an approximation: the same
 Monte Carlo estimator law, at 10x (Q1) to 250x (Q2) fewer random numbers
-and zero sequential steps.  On TPU — where transcendental-heavy RNG is the
-bottleneck (VPU, no GPU-style SFUs) while matmuls are nearly free (MXU) —
-this is the difference between losing to and beating the CUDA reference.
+and zero sequential steps: the random-number generation and the
+sequential stepping that dominate the reference's kernels shrink to a
+small matmul.
 
 Sigma-dependence stays scalar (z scales with sig_st = sigma * const), so
 CRN (same x), antithetic (+/-z), and the vega tangent (dz/dsigma = z/sigma)

@@ -1,4 +1,4 @@
-"""Linear-functional (MXU) simulation engine — the TPU-first fast path.
+"""Linear-functional (matmul) simulation engine — the full-step tier.
 
 The exact-discretization Hull-White recursion is *affine in the Gaussian
 shocks*:
@@ -16,7 +16,7 @@ So the whole 1000-step simulation collapses to ONE matmul
     Z = G @ W            # (paths, steps) @ (steps, functionals)
 
 followed by elementwise payoff math — this is where the reference's 2^30
-sequential SDE steps (market_data.cuh:43-67) become MXU work.  Consequences:
+sequential SDE steps (market_data.cuh:43-67) become matmul work.  Consequences:
 
 * antithetic legs are +/-Z from one matmul (no second pass);
 * the strided 101-maturity accumulation of ``simulate_zcb``

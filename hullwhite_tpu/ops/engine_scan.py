@@ -1,6 +1,6 @@
 """Sequential-scan simulation engine (reference implementation).
 
-This is the direct TPU analogue of the reference's per-thread time loops
+This is the direct analogue of the reference's per-thread time loops
 (``simulate_zcb`` market_data.cuh:25-79, ``simulate_ZBC_control_variate``
 common.cuh:286-409, ``simulate_sensitivity`` 3_sensitivity_analysis.cu:22-96):
 a ``lax.scan`` over time steps carrying the vectorized path state for a

@@ -1,9 +1,8 @@
-"""Uniform-grid interpolation for per-path table lookups on TPU.
+"""Uniform-grid interpolation for per-path table lookups.
 
 ``jnp.interp`` / ``jnp.searchsorted`` lower to an O(paths x table)
-broadcast-compare plus dynamic gathers on TPU (~7 ns/element) — on the
-Bermudan exposure kernel's 1501-point value grids that was 935 ms per
-call at 2^21 paths, 58x the kernel's final cost (RESULTS.md).  Every
+broadcast-compare plus dynamic gathers — on the Bermudan exposure
+kernel's 1501-point value grids that dominated the kernel.  Every
 per-path lookup table in this repo (DP value grids, boundary curves
 u*(w), coupon lattices) is a linspace, so the cell index is an affine
 map: one clip + one gather.

@@ -4,9 +4,10 @@ This is the elementwise tail of the hot kernels — the part the reference
 fuses into ``simulate_ZBC_control_variate`` (common.cuh:337-362) and
 ``simulate_sensitivity`` (3_sensitivity_analysis.cu:64-80) after the time
 loop, followed by the warp/block/atomic reduction hierarchy
-(common.cuh:367-408).  On TPU the reduction hierarchy is simply ``jnp.sum``
-over the path block (XLA emits an on-chip tree reduction) + a float32
-accumulation across blocks + ``lax.psum`` across the device mesh.
+(common.cuh:367-408).  Here the reduction hierarchy is simply ``jnp.sum``
+over the path block (XLA emits an on-device tree reduction) + a
+compensated float32 accumulation across blocks + ``lax.psum`` across the
+device mesh.
 
 Moment conditioning note: the control variate Y = discount * P(S1,S2) has
 E[Y] = P(0,S2) ~ 0.88, so we accumulate moments of the *centered* control

@@ -16,7 +16,7 @@ Two implementations are exposed:
 
 * ``threefry2x32`` (default) — fully reproducible across backends, used by
   tests;
-* ``rbg`` — XLA's RngBitGenerator, much faster on TPU, used for benchmarks.
+* ``rbg`` — XLA's RngBitGenerator (not reproducible across backends).
 """
 
 from __future__ import annotations

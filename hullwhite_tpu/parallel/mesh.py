@@ -2,13 +2,14 @@
 
 The reference is single-GPU (SURVEY §2.9): its only parallelism is data
 parallelism over Monte Carlo paths, with a warp-shuffle/shared-memory/atomic
-reduction hierarchy inside the device.  On TPU the same decomposition
+reduction hierarchy inside the device.  Here the same decomposition
 becomes:
 
-* within a chip: ``jnp.sum`` over the path block (XLA on-chip tree
+* within a device: ``jnp.sum`` over the path block (an XLA tree
   reduction) — replaces warp shuffles + shared memory + atomics;
-* across chips: ``lax.psum`` over a 1-D ``Mesh`` on the ICI — a capability
-  the reference does not have (it pins one GPU, makefile:27).
+* across devices: ``lax.psum`` over a 1-D ``Mesh`` (NCCL over NVLink on
+  a multi-GPU host) — a capability the reference does not have (it pins
+  one GPU, makefile:27).
 
 Paths are embarrassingly parallel until the final reduction, so the mesh is
 one axis ("paths") and every collective is a single psum of a tiny vector

@@ -116,10 +116,16 @@ def write_json(path, task: str, cfg: HWConfig, results: dict,
 
 
 def performance_block(time_ms: float, n_paths: int):
-    """Schema of json_write_performance (output.cuh:53-60)."""
+    """Schema of json_write_performance (output.cuh:53-60), plus the
+    device the time was measured on."""
+    import jax
+
+    dev = jax.devices()[0]
     return {
         "simulation_time_ms": round(time_ms, 3),
         "throughput_Mpaths_per_sec": round(n_paths / time_ms / 1e3, 2),
+        "platform": dev.platform,
+        "device_kind": dev.device_kind,
     }
 
 

@@ -1,13 +1,13 @@
-"""Compiled-kernel introspection — the TPU analogue of the reference's
-CUDA occupancy analyzer (3_sensitivity_analysis.cu:183-239, C34), which
+"""Compiled-kernel introspection — the analogue of the reference's CUDA
+occupancy analyzer (3_sensitivity_analysis.cu:183-239, C34), which
 reported registers/thread, shared-memory usage, spilling and theoretical
 occupancy before launching the hot kernel.
 
-On TPU the analogous pre-flight introspection is the XLA compile report:
-FLOPs and transcendentals from ``cost_analysis`` and the HBM/argument/
-output/temp/code footprint from ``memory_analysis``; "occupancy" is
-replaced by arithmetic-intensity and roofline utilization against the
-device's published peaks.
+Here the pre-flight introspection is the XLA compile report: FLOPs and
+transcendentals from ``cost_analysis`` and the argument/output/temp/code
+footprint from ``memory_analysis``; "occupancy" is replaced by
+arithmetic intensity and roofline utilization against the device's
+published peaks.
 """
 
 from __future__ import annotations
@@ -16,25 +16,39 @@ from typing import Any
 
 import jax
 
-# rough single-chip peaks for roofline context (published numbers; the
-# match is a substring test against str(device), most-specific first)
-_PEAKS = {
-    "TPU v5 lite": {"bf16_tflops": 197.0, "hbm_gbps": 819.0},
-    "TPU v5e": {"bf16_tflops": 197.0, "hbm_gbps": 819.0},
-    "TPU v5p": {"bf16_tflops": 459.0, "hbm_gbps": 2765.0},
-    "TPU v6 lite": {"bf16_tflops": 918.0, "hbm_gbps": 1640.0},
-    "TPU v6e": {"bf16_tflops": 918.0, "hbm_gbps": 1640.0},
-    "TPU v4": {"bf16_tflops": 275.0, "hbm_gbps": 1228.0},
-    "TPU v3": {"bf16_tflops": 123.0, "hbm_gbps": 900.0},
+# Published dense peaks, keyed on the exact ``device_kind`` JAX reports.
+# Source: NVIDIA H100 SXM data sheet (fp32 without tensor cores; TF32
+# and bf16 tensor-core rates without sparsity; HBM3 bandwidth).  A device
+# not in this table gets no peaks.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"fp32_tflops": 67.0, "tf32_tflops": 495.0,
+                              "bf16_tflops": 989.0, "hbm_gbps": 3350.0},
 }
-# documented fallback when the device string matches no row: v5e-class
-# numbers, flagged as assumed so the roofline lines stay interpretable
-_DEFAULT_PEAKS = {"bf16_tflops": 197.0, "hbm_gbps": 819.0,
-                  "assumed": "unrecognized TPU; v5e-class peaks assumed"}
+
+# The unit a float32 matmul runs on at each ``HWConfig.matmul_precision``:
+# "highest" is true fp32 (FFMA), "default"/"high" allow TF32 on the card.
+PRECISION_UNIT = {"highest": "fp32", "float32": "fp32",
+                  "high": "tf32", "tensorfloat32": "tf32", "default": "tf32",
+                  "bfloat16": "bf16"}
 
 
-def kernel_report(fn, *args, static_argnums=()) -> dict[str, Any]:
-    """Lower + compile ``fn`` on ``args`` and extract the compile report."""
+def device_peaks(device_kind: str):
+    """Peak table row for ``device_kind``, or None when unknown."""
+    return PEAKS.get(device_kind)
+
+
+def compute_peak(report: dict[str, Any]) -> tuple[str, float]:
+    """(unit, TFLOP/s) the report's matmuls run against, chosen by its
+    ``matmul_precision`` (the package default, "highest", when absent)."""
+    unit = PRECISION_UNIT[report.get("matmul_precision", "highest")]
+    return unit, report["peaks"][f"{unit}_tflops"]
+
+
+def kernel_report(fn, *args, static_argnums=(),
+                  matmul_precision: str = "highest") -> dict[str, Any]:
+    """Lower + compile ``fn`` on ``args`` and extract the compile report;
+    ``matmul_precision`` is the precision ``fn``'s matmuls were traced at
+    (it picks the compute peak)."""
     jitted = fn if hasattr(fn, "lower") else jax.jit(fn,
                                                      static_argnums=static_argnums)
     compiled = jitted.lower(*args).compile()
@@ -55,13 +69,11 @@ def kernel_report(fn, *args, static_argnums=()) -> dict[str, Any]:
             report[field] = getattr(mem, field, None)
     dev = jax.devices()[0]
     report["device"] = str(dev)
-    for name, peaks in _PEAKS.items():
-        if name in str(dev):
-            report["peaks"] = peaks
-            break
-    else:
-        if dev.platform == "tpu":
-            report["peaks"] = _DEFAULT_PEAKS
+    report["device_kind"] = dev.device_kind
+    report["matmul_precision"] = matmul_precision
+    peaks = device_peaks(dev.device_kind)
+    if peaks is not None:
+        report["peaks"] = peaks
     if (report.get("peaks") and report.get("flops")
             and report.get("bytes_accessed")):
         report["arithmetic_intensity_flops_per_byte"] = (
@@ -86,20 +98,22 @@ def limiting_factor(report: dict[str, Any],
     if not peaks or not flops or not bts:
         return {"factor": "unknown",
                 "detail": "no peak table or cost analysis for this device"}
-    ridge = peaks["bf16_tflops"] * 1e12 / (peaks["hbm_gbps"] * 1e9)
+    unit, tflops = compute_peak(report)
+    ridge = tflops * 1e12 / (peaks["hbm_gbps"] * 1e9)
     ai = flops / max(bts, 1.0)
     if time_s:
-        mxu = flops / time_s / (peaks["bf16_tflops"] * 1e12)
+        comp = flops / time_s / (tflops * 1e12)
         hbm = bts / time_s / (peaks["hbm_gbps"] * 1e9)
-        factor = "MXU compute" if mxu >= hbm else "HBM bandwidth"
-        return {"factor": factor, "mxu_utilization": mxu,
+        factor = "compute" if comp >= hbm else "HBM bandwidth"
+        return {"factor": factor, "compute_utilization": comp,
                 "hbm_utilization": hbm,
-                "detail": f"achieved {mxu:.1%} of bf16 peak, "
+                "detail": f"achieved {comp:.1%} of {unit} peak, "
                           f"{hbm:.1%} of HBM peak"}
-    factor = "MXU compute" if ai >= ridge else "HBM bandwidth"
+    factor = "compute" if ai >= ridge else "HBM bandwidth"
     return {"factor": factor, "arithmetic_intensity": ai,
             "ridge_point": ridge,
-            "detail": f"AI {ai:.1f} flop/B vs ridge {ridge:.1f} flop/B"}
+            "detail": f"AI {ai:.1f} flop/B vs {unit} ridge "
+                      f"{ridge:.1f} flop/B"}
 
 
 def format_report(report: dict[str, Any], time_s: float | None = None) -> str:
@@ -131,34 +145,15 @@ def format_report(report: dict[str, Any], time_s: float | None = None) -> str:
     if time_s and report.get("peaks"):
         p = report["peaks"]
         if report.get("flops"):
-            util = report["flops"] / time_s / (p["bf16_tflops"] * 1e12) * 100
-            lines.append(f"  MXU utilization:      {util:.1f}% of bf16 peak")
+            unit, tflops = compute_peak(report)
+            util = report["flops"] / time_s / (tflops * 1e12) * 100
+            lines.append(f"  compute utilization:  {util:.1f}% of {unit} peak")
         if report.get("bytes_accessed"):
             bw = report["bytes_accessed"] / time_s / (p["hbm_gbps"] * 1e9) * 100
             lines.append(f"  HBM utilization:      {bw:.1f}% of peak")
+    if "peaks" not in report:
+        lines.append(f"  peaks:                none for "
+                     f"{report.get('device_kind', '?')!r} (not in the table)")
     lf = limiting_factor(report, time_s)
     lines.append(f"  limiting factor:      {lf['factor']} ({lf['detail']})")
-    if report.get("peaks", {}).get("assumed"):
-        lines.append(f"  NOTE: {report['peaks']['assumed']}")
-    return "\n".join(lines)
-
-
-def format_vmem_datasheet(cfg) -> str:
-    """Mosaic-level static table: per fused kernel, the declared VMEM
-    working set from the live tile constants (pallas/fused.vmem_datasheet)
-    — the second half of the reference's occupancy report (its
-    shared/const-memory-per-block lines)."""
-    from ..pallas import fused
-
-    lines = ["Fused-kernel VMEM datasheet (declared working set / tile)",
-             f"  {'kernel':14s}{'paths/tile':>11s}{'grid':>7s}"
-             f"{'VMEM':>11s}  dominant buffer"]
-    for name, e in fused.vmem_datasheet(cfg).items():
-        dom = max(e["buffers"], key=e["buffers"].get)
-        lines.append(
-            f"  {name:14s}{e['paths_per_tile']:>11d}{e['grid_tiles']:>7d}"
-            f"{e['declared_bytes'] / 2**20:>9.2f} Mi  "
-            f"{dom} ({e['buffers'][dom] / 2**20:.2f} Mi)")
-    lines.append("  (Mosaic adds scheduling copies; hardware bracket: "
-                 "tpu_tests/test_vmem_datasheet.py)")
     return "\n".join(lines)

@@ -3978,9 +3978,8 @@ def bermudan_exposure_oracle(cfg: HWConfig, market: MarketCurve,
 def _clenshaw(coef, u):
     """Chebyshev series evaluation by Clenshaw recurrence (coef is a
     static 1-d fp32 array; u in [-1, 1]).  Pure fused multiply-adds —
-    no table gathers, which on TPU cost ~7 ns/element and dominated
-    the first version of this kernel (935 ms -> 16 ms at 2^21 paths
-    after replacing interpolation with closed forms + Chebyshev)."""
+    no table gathers, which dominated the first version of this kernel
+    before interpolation was replaced with closed forms + Chebyshev."""
     b1 = jnp.zeros_like(u)
     b2 = jnp.zeros_like(u)
     for c in coef[:0:-1]:
@@ -4257,7 +4256,7 @@ def _interp2(gx, gy, F, x, y):
     cover +/- 6.5 sd; tail mass is negligible and the clip keeps
     values bounded).  Uniform-grid affine indexing + one flattened
     gather per corner: jnp.searchsorted lowers to an O(paths x table)
-    broadcast-compare on TPU (measured 60x slower); stacking V and the
+    broadcast-compare (far slower); stacking V and the
     policy surface into one (.., 2) table halves the remaining gather
     count."""
     hx = gx[1] - gx[0]

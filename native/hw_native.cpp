@@ -3,9 +3,9 @@
 // The CUDA reference's host layer is native C++ (table precompute
 // common.cuh:60-110, persistence common.cuh:144-176, report writers
 // output.cuh, run statistics 2_option_pricing.cu:305-359).  This library is
-// the TPU framework's equivalent: the L1 precompute layer (drift integral
+// the JAX framework's equivalent: the L1 precompute layer (drift integral
 // tables, shock-weight shapes, checkpoint-covariance Cholesky factors that
-// feed the XLA/Pallas kernels), binary/CSV persistence, and the
+// feed the XLA kernels), binary/CSV persistence, and the
 // independent-run statistics.  All math is double precision — the tables
 // are consumed as fp32 by the device but must be built wider (see
 // models/hull_white.host_tables docstring).

@@ -1,5 +1,5 @@
-"""Cross-engine consistency: the scan engine and the linear (MXU) engine
-must agree pathwise on identical shocks — the TPU analogue of the
+"""Cross-engine consistency: the scan engine and the linear (matmul) engine
+must agree pathwise on identical shocks — the analogue of the
 reference's <1e-6 reduction-variant price agreement
 (benchmark_reductions.cu:158-169), but stronger (per-path, not just means).
 """

@@ -1,7 +1,7 @@
 """Compile-report introspection (utils/profile.py) — untested in round 1."""
 
-import jax
 import jax.numpy as jnp
+import pytest
 
 from hullwhite_tpu.utils import profile as prof
 
@@ -20,25 +20,44 @@ def test_kernel_report_smoke():
     assert "FLOPs" in s and "limiting factor" in s
 
 
-def _synthetic(flops, bts):
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def _synthetic(flops, bts, **extra):
     return {"flops": flops, "bytes_accessed": bts,
-            "peaks": prof._PEAKS["TPU v5 lite"]}
+            "peaks": prof.device_peaks(H100), **extra}
 
 
 def test_limiting_factor_classification():
-    ridge = 197e12 / 819e9  # ~240 flop/B for v5e
+    ridge = 67e12 / 3350e9  # 20 flop/B: fp32 FFMA, the "highest" default
     lo = prof.limiting_factor(_synthetic(1e9, 1e9))   # AI 1 << ridge
     hi = prof.limiting_factor(_synthetic(1e15, 1e9))  # AI 1e6 >> ridge
     assert lo["factor"] == "HBM bandwidth"
-    assert hi["factor"] == "MXU compute"
-    assert abs(lo["ridge_point"] - ridge) < 1.0
+    assert hi["factor"] == "compute"
+    assert abs(lo["ridge_point"] - ridge) < 1e-6
+    assert "fp32 ridge" in lo["detail"]
+
+
+@pytest.mark.parametrize("precision,unit,tflops", [
+    ("highest", "fp32", 67.0), ("default", "tf32", 495.0),
+    ("tensorfloat32", "tf32", 495.0), ("bfloat16", "bf16", 989.0)])
+def test_compute_peak_follows_matmul_precision(precision, unit, tflops):
+    """An fp32 GEMM at HIGHEST is read against the fp32 peak, never the
+    tensor-core rate: AI 100 flop/B is compute-bound for fp32 and
+    TF32 (ridge 148) would call it bandwidth-bound."""
+    rep = _synthetic(100e9, 1e9, matmul_precision=precision)
+    assert prof.compute_peak(rep) == (unit, tflops)
+    lf = prof.limiting_factor(rep, time_s=None)
+    assert lf["ridge_point"] == pytest.approx(tflops * 1e12 / 3350e9)
+    assert lf["factor"] == ("compute" if unit == "fp32" else "HBM bandwidth")
+    assert f"% of {unit} peak" in prof.format_report(rep, time_s=1e-3)
 
 
 def test_limiting_factor_with_timing():
-    # 1 ms kernel doing 100 Tflop-equivalents -> MXU-bound
-    r = prof.limiting_factor(_synthetic(100e9, 1e6), time_s=1e-3)
-    assert r["factor"] == "MXU compute"
-    assert r["mxu_utilization"] > r["hbm_utilization"]
+    # 1 ms kernel doing 500 Tflop-equivalents -> compute-bound
+    r = prof.limiting_factor(_synthetic(500e9, 1e6), time_s=1e-3)
+    assert r["factor"] == "compute"
+    assert r["compute_utilization"] > r["hbm_utilization"]
     # same bytes at trivial flops -> bandwidth-bound
     r2 = prof.limiting_factor(_synthetic(1e6, 800e6), time_s=1e-3)
     assert r2["factor"] == "HBM bandwidth"
@@ -49,24 +68,21 @@ def test_limiting_factor_unknown_device():
     assert r["factor"] == "unknown"
 
 
-def test_vmem_datasheet_static_accounting():
-    """The declared working sets follow from the live tile constants."""
-    from hullwhite_tpu import HWConfig
-    from hullwhite_tpu.pallas import fused
-    from hullwhite_tpu.utils.profile import format_vmem_datasheet
+def test_h100_peaks_keyed_on_exact_device_kind():
+    """The data-sheet row (fp32, dense TF32/bf16, HBM3) for the exact
+    device_kind."""
+    assert prof.device_peaks(H100) == {"fp32_tflops": 67.0,
+                                       "tf32_tflops": 495.0,
+                                       "bf16_tflops": 989.0,
+                                       "hbm_gbps": 3350.0}
+    # no substring matching: a near miss is an unknown device
+    assert prof.device_peaks("NVIDIA H100") is None
 
-    cfg = HWConfig()
-    sheet = fused.vmem_datasheet(cfg)
-    assert set(sheet) == {"curve_full", "curve_exact", "zbc_exact",
-                          "vega_exact", "delta_exact", "zbc_full",
-                          "vega_full"}
-    for e in sheet.values():
-        assert e["declared_bytes"] == sum(e["buffers"].values()) > 0
-        assert cfg.n_paths % e["paths_per_tile"] == 0
-    # the curve exact kernel's two BM half-tiles dominate everything else
-    assert (sheet["curve_exact"]["declared_bytes"]
-            > sheet["zbc_exact"]["declared_bytes"])
-    # all tiles fit the ~16 MiB scoped VMEM budget by design
-    assert all(e["declared_bytes"] < 16 * 2**20 for e in sheet.values())
-    out = format_vmem_datasheet(cfg)
-    assert "curve_exact" in out and "Mi" in out
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                  "Some Future Accelerator"])
+def test_unknown_device_gets_no_peaks(kind):
+    assert prof.device_peaks(kind) is None
+    rep = {"flops": 1e9, "bytes_accessed": 1e9, "device_kind": kind}
+    assert prof.limiting_factor(rep)["factor"] == "unknown"
+    assert f"none for {kind!r}" in prof.format_report(rep)
